@@ -1,36 +1,37 @@
-"""Scaling the sweep and the FOV over a device mesh (single chip to pod).
+"""Scaling the sweep and the FOV over a device mesh (one card to a cluster).
 
 Three levels, one code path (SURVEY.md section 2.4; the reference is a
 single-process numpy script suite with no parallelism):
 
-1. one chip            -- the mesh degrades to {"batch": 1}; no change.
-2. one host, N chips   -- shard the sweep axis ("batch", DP) and image
-                          rows ("space", SP); XLA inserts the collectives.
-3. many hosts (pod)    -- ``initialize_multihost()`` first; after it,
+1. one card            -- the mesh degrades to {"batch": 1}; no change.
+2. one host, N cards   -- shard the sweep axis ("batch", DP) and image
+                          rows ("space", SP); XLA inserts the collectives
+                          (NCCL between GPUs).
+3. many hosts          -- ``initialize_multihost()`` first; after it,
                           ``jax.devices()`` is global and the SAME mesh
-                          helpers span hosts (ICI in-slice, DCN across).
+                          helpers span hosts.
 
 Run: PYTHONPATH=. python examples/scaling.py
-(on a single-chip/CPU box it self-provisions 8 virtual CPU devices so the
-sharded paths actually run; on real hardware it uses what is there)
+(on a box without a GPU it self-provisions 8 virtual CPU devices so the
+sharded paths actually run; with a GPU it uses what is there)
 """
 
-import importlib.util
 import os
+import pkgutil
 
 _plat = os.environ.get("JAX_PLATFORMS", "")
 # Virtual-mesh fallback when the user explicitly chose CPU, or when no
-# accelerator plugin exists to choose. An UNSET platform with a TPU/GPU
-# plugin installed is real hardware: leave the environment alone so the
-# example uses what is there.
+# CUDA plugin for JAX (``jax_cuda<version>_plugin``) is installed. An UNSET
+# platform with the plugin installed is real hardware: leave the
+# environment alone so the example uses what is there.
 _want_virtual = _plat == "cpu" or (
     _plat == ""
-    and importlib.util.find_spec("libtpu") is None
-    and importlib.util.find_spec("jax_cuda12_plugin") is None)
+    and not any(m.name.startswith("jax_cuda") and m.name.endswith("_plugin")
+                for m in pkgutil.iter_modules()))
 if _want_virtual and "xla_force_host_platform_device_count" not in \
         os.environ.get("XLA_FLAGS", ""):
     # Demo fallback: provision a virtual 8-device CPU mesh so the sharded
-    # paths actually execute on an accelerator-less (or forced-cpu) box.
+    # paths actually execute on a box without a GPU (or forced to cpu).
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=8").strip()
     os.environ["JAX_PLATFORMS"] = "cpu"

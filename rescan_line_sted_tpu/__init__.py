@@ -1,6 +1,6 @@
-"""TPU-native rescan line-STED microscopy simulation engine.
+"""Rescan line-STED microscopy simulation engine in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A JAX/XLA framework with the capabilities of the reference
 publication repo ``AndrewGYork/rescan_line_sted`` (see SURVEY.md): PSF synthesis
 with saturable STED depletion, point-/line-/rescanned-STED image formation,
 Poisson shot noise, multi-orientation Richardson-Lucy fusion, and dose-matched
@@ -8,7 +8,7 @@ comparison sweeps -- all compiled to single XLA programs and mesh-shardable.
 
 Layer map (SURVEY.md section 2.2):
   physics/    PSF synthesis, depletion nonlinearity, noise, dose accounting
-  kernels/    fused FFT convolution; Pallas rescan scatter-add kernel
+  kernels/    FFT convolution helpers; rescan scatter-add placement
   imaging/    point-STED / descanned-line / rescanned-line engines
   algorithms/ Richardson-Lucy deconvolution, resolution metrics
   sweeps/     vmapped dose-matched comparison sweeps

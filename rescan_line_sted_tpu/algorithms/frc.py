@@ -7,9 +7,9 @@ practice for real microscopy data (Nieuwenhuizen et al., Nat. Methods 10,
 557 (2013)) and the natural companion for this engine's independent-draw
 noise model. Beyond the reference's capability surface.
 
-TPU-shaped: one batched rFFT2 pair, ring binning as a one-hot matmul
-(segment sums lower poorly on TPU; a [rings, H*(W//2+1)] f32 matmul is one
-MXU pass), fully jittable and vmappable -- FRC curves can ride inside
+Shape of the computation: one batched rFFT2 pair, ring binning as a
+one-hot ``[rings, H*(W//2+1)]`` f32 matmul (one dense pass instead of a
+segment-sum scatter), fully jittable and vmappable -- FRC curves can ride inside
 vmapped sweeps.
 """
 
@@ -126,7 +126,7 @@ def frc_sectored_resolution(img1: jnp.ndarray, img2: jnp.ndarray,
     the crossing measures resolution along that image axis and can be
     rescaled to sample units with that axis's scale factor alone.
 
-    Same TPU shape as :func:`frc_curve`: the two sector matrices are
+    Same shape of computation as :func:`frc_curve`: the two sector matrices are
     static one-hot matmuls; jittable/vmappable.
     """
     h, w = img1.shape[-2:]

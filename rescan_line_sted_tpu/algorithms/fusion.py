@@ -174,8 +174,7 @@ def ism_deconvolve(
     resolution-enhanced image; for integer R its exact target is the
     zero-inserted upsampled sample). Operator-form RL straight to the
     sample grid was tried and REJECTED: the band-limited place operator
-    rings negative, which destabilizes the multiplicative update
-    (docs/PERFORMANCE.md has the matching kernel-composition lesson).
+    rings negative, which destabilizes the multiplicative update.
 
     ``params``: PointSTEDParams; ``geom``: RescanPointGeometry (binning=1).
     """

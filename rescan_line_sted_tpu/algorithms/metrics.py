@@ -9,13 +9,13 @@ so they can run inside vmapped sweeps.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
 
 from rescan_line_sted_tpu.config import (
     LineSTEDParams,
     PointSTEDParams,
 )
 from rescan_line_sted_tpu.imaging import analytic
+from rescan_line_sted_tpu.utils import struct
 
 
 def fwhm_1d(profile: jnp.ndarray) -> jnp.ndarray:

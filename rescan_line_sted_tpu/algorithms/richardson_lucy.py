@@ -5,7 +5,7 @@ multiplicative-update loop (SURVEY.md sections 1.1 and 4.5):
 
     est <- est * (1/N) * sum_v [ (data_v / (est (*) psf_v)) (*) flip(psf_v) ]
 
-TPU-first design:
+Design:
 
 * the view axis is a *batched leading dimension*, so each iteration is one
   batched rFFT2 round-trip over all views at once (no per-view Python loop);
@@ -53,6 +53,7 @@ def richardson_lucy_views(
     # which keeps the f32 iteration from blowing up to NaN.
     tiny = eps * jnp.maximum(jnp.mean(jnp.abs(data)), 1e-30)
 
+    @jax.named_scope("rl_iter")
     def rl_update(est):
         fwd = fftconv.convolve_otf(est[None], otfs, shape)      # [V, H, W]
         ratio = jnp.where(fwd > tiny, data / jnp.maximum(fwd, tiny), 0.0)

@@ -5,7 +5,7 @@ Two kinds of configuration, split by how JAX treats them:
 * **Geometry** (plain frozen dataclasses): static, hashable facts that determine
   array *shapes* and compiled control flow -- grid size, scan chunking, rescan
   factor, detector binning. Changing one recompiles.
-* **Params** (``flax.struct`` pytrees of scalars): physics knobs that are traced
+* **Params** (``utils.struct`` pytrees of scalars): physics knobs that are traced
   values -- PSF widths, depletion saturation ``s``, brightness, pinhole/slit
   sizes. These can be ``vmap``-ped over (the dose sweep vmaps over
   ``depletion``) without recompilation. Each params class also carries an
@@ -22,7 +22,8 @@ from __future__ import annotations
 import dataclasses
 
 import jax.numpy as jnp
-from flax import struct
+
+from rescan_line_sted_tpu.utils import struct
 
 # ---------------------------------------------------------------------------
 # Static geometry
@@ -289,24 +290,19 @@ class LineSTEDParams:
 RescanParams = LineSTEDParams
 
 
-def matmul_precision(pallas: bool = False):
-    """The MXU precision every engine matmul uses.
+def matmul_precision():
+    """The matmul precision every engine matmul uses.
 
-    Default ``HIGHEST`` -- the measured error budget (docs/PERFORMANCE.md)
-    shows single-pass bf16 (``DEFAULT``) misses the engine's 1e-5 oracle
-    parity bar by ~50-100x and the 3-pass ``HIGH`` leaves almost no margin
-    (8e-6 at 512 terms, growing with width), while the engines' wall time
-    is mostly not MXU-bound at simulation sizes, so trading accuracy buys
-    nearly nothing. Override with
-    ``RLS_MATMUL_PRECISION={default,high,highest}`` (read at import time)
-    for experiments. ``pallas=True`` maps ``high`` to ``highest``: Mosaic
-    does not implement 3-pass dots inside kernels.
+    Default ``HIGHEST`` (float32 operands, float32 accumulation): the
+    engines are held to 1e-5 relative error against the float64 oracle, and
+    reduced-precision passes (bf16 ``DEFAULT``, or TF32 where a backend
+    lowers ``HIGH`` to it) keep only ~3 decimal digits per product. Override
+    with ``RLS_MATMUL_PRECISION={default,high,highest}`` (read at import
+    time) for experiments.
     """
     import os
 
     import jax
 
     name = os.environ.get("RLS_MATMUL_PRECISION", "highest").upper()
-    if pallas and name == "HIGH":
-        name = "HIGHEST"
     return getattr(jax.lax.Precision, name)

@@ -8,10 +8,10 @@ process; this is the scan-steps/sec benchmark path). Scan scheduling:
 
 * collapsed noise (default): detection folds into the step (``q = slit (*)
   gx``) and every step is an inner product with a shifted copy of
-  ``p = eff . q`` -- the whole raster is ONE MXU matmul against
+  ``p = eff . q`` -- the whole raster is ONE matmul against
   ``circulant(p)``.
 * per-step noise: chunked ``lax.scan``; each chunk's camera frames come from
-  a circulant MXU matmul, get Poisson-sampled, then slit-summed.
+  a (windowed) circulant matmul, get Poisson-sampled, then slit-summed.
 """
 
 from __future__ import annotations
@@ -44,8 +44,6 @@ def line_sted_image(
     noise_mode: str = "collapsed",
     boundary: str = "circular",
     margin: int | None = None,
-    use_pallas: bool | None = None,
-    slit_support: int | None = None,
 ) -> AcquisitionResult:
     """Simulate a full descanned line-STED acquisition of ``sample``.
 
@@ -56,11 +54,6 @@ def line_sted_image(
     samples every camera frame like the reference's loop does.
     ``boundary``: ``"circular"`` or ``"padded"`` (open boundary via
     pad-acquire-crop; dose reported for the requested field).
-    ``slit_support`` (per-step fused TPU path): static height of the camera
-    window the in-kernel Poisson draw covers; must exceed twice the slit
-    halfwidth. Sized automatically when the halfwidth is a concrete value;
-    with a *traced* halfwidth the default is ``max(64, w//4)`` -- pass it
-    explicitly (or ``use_pallas=False``) for traced halfwidths beyond w/8.
     """
     if boundary == "apodized":
         # raised-cosine taper to zero at the edges: kills wrap artifacts
@@ -82,16 +75,14 @@ def line_sted_image(
         res = acquire_padded(
             lambda s, g, **kw: line_sted_image(s, params, g, **kw),
             sample, geom, default_margin(geom) if margin is None else margin,
-            key=key, method=method, noise_mode=noise_mode,
-            use_pallas=use_pallas, slit_support=slit_support)
+            key=key, method=method, noise_mode=noise_mode)
         return res.replace(dose=line_sted_dose(params, geom))
     if boundary != "circular":
         raise ValueError(f"unknown boundary {boundary!r}")
     if method == "analytic":
         image = _analytic(sample, params, geom, key)
     elif method == "scan":
-        image = _scan(sample, params, geom, key, noise_mode, use_pallas,
-                      slit_support)
+        image = _scan(sample, params, geom, key, noise_mode)
     else:
         raise ValueError(f"unknown method {method!r}")
     return AcquisitionResult(image=image, dose=line_sted_dose(params, geom))
@@ -115,7 +106,11 @@ def _analytic(sample, params, geom, key):
 
 
 def _scan(sample, params, geom, key, noise_mode="collapsed",
-          use_pallas=None, slit_support=None):
+          windowed=None):
+    """The scan path. ``windowed`` picks the per-step pipeline: ``None``
+    takes the windowed one exactly when ``_line_band`` finds static windows,
+    ``True`` requires them (``ValueError`` otherwise), ``False`` forces the
+    full-frame one (parity tests, route timings)."""
     if noise_mode not in ("collapsed", "per_step"):
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
     shape = geom.grid.shape
@@ -136,10 +131,10 @@ def _scan(sample, params, geom, key, noise_mode="collapsed",
     otf_y = fftconv.profile_to_otf1d(psfs.detection_profile(h, params.sigma_det))
     sample_y = fftconv.convolve_otf1d(sample, otf_y, axis=-2, n=h)
     if not per_step:
-        # All W scan steps collapse to ONE MXU matmul: folding detection into
+        # All W scan steps collapse to ONE matmul: folding detection into
         # the step (q = slit (*) gx) gives img(y, x0) = sum_a sample_y(y, a)
         # * p(a - x0) with p = eff . q, i.e. sample_y @ circulant(p). Same
-        # per-step physics, scheduled as a single 512^3-class matmul.
+        # per-step physics, scheduled as a single W x W matmul.
         q = fftconv.convolve_profiles(slit, gx)
         p_mat = fftconv.circulant_matrix(params.brightness * eff * q)
         img = jnp.dot(sample_y, p_mat,
@@ -147,135 +142,90 @@ def _scan(sample, params, geom, key, noise_mode="collapsed",
                       precision=_PRECISION)
         return img if key is None else maybe_poisson(key, img)
 
-    # Per-step noise. On TPU the whole noisy scan runs as ONE fused Pallas
-    # megakernel (kernels/line_fused.py): VMEM-resident state, MXU
-    # x-convolution, and per-camera-frame Poisson from the hardware PRNG --
-    # no [C, H, W] chunks in HBM, no threefry. Only the slit's static
-    # support window is sampled (descanned detection never reads the rest
-    # of the frame, so its noise cannot reach the output). The window is
-    # sized from the halfwidth when it is a concrete value; for a *traced*
-    # halfwidth the default window is max(64, w//4) -- wider slits need an
-    # explicit slit_support (or use_pallas=False), see the engine docstring.
-    gx_mat = fftconv.circulant_matrix(gx)
-    on_tpu = jax.default_backend() == "tpu"
-    slit_fits = True
-    if slit_support is None:
-        try:  # concrete (untraced) halfwidth: size the window to fit
-            hw = float(params.slit_halfwidth)
-            slit_support = min(w, int(2 * hw) + 10)
-            slit_fits = slit_support >= 2 * hw + 2 or slit_support >= w
-        except (TypeError, jax.errors.TracerArrayConversionError,
-                jax.errors.ConcretizationTypeError):
-            slit_support = min(w, max(64, w // 4))
-    win = min(w, ((slit_support + 7) // 8) * 8)
-    # VMEM model: resident circulant [w, w] + the batched sampler's 44
-    # uniform planes of [win, lane] + a few frame temporaries (lane is 128
-    # only when h tiles evenly; otherwise the full h is one tile)
-    lane = 128 if h % 128 == 0 else h
-    vmem_ok = (w * w + 50 * win * lane) * 4 <= 14_000_000 and w % 8 == 0
-    # The banded windowed fallback (r3) measures ~1.7x the fused megakernel
-    # (44.9k vs 26.5k steps/s at 512^2, same harness), so when its static
-    # windows are available it is the per-step default; the megakernel
-    # stays reachable with use_pallas=True and remains the default when
-    # banding is unavailable (traced params / custom illumination models).
+    # Per-step noise: chunked lax.scan over explicit camera frames. With
+    # static windows (_line_band) the pipeline is WINDOWED: the conv
+    # contracts over a D_in sample-column window, and only the D_out camera
+    # columns the slit can read are produced and sampled (descanned
+    # detection never reads the rest, so its noise cannot reach the image)
+    # -- all tables chunk-invariant. Otherwise every chunk synthesizes full
+    # frames with one circulant matmul.
     band = _line_band(params, w, chunk)
-    if (on_tpu and vmem_ok and slit_fits and use_pallas is not False
-            and (use_pallas is True or band is None)):
-        from rescan_line_sted_tpu.kernels.line_fused import line_sted_fused
-
-        seed = jax.random.randint(key, (2,), 0, jnp.iinfo(jnp.int32).max,
-                                  dtype=jnp.int32)
-        return line_sted_fused(sample_y, params.brightness * eff, gx_mat,
-                               slit, seed, slit_support=slit_support,
-                               interpret=False)
-
-    # Fallback: chunked lax.scan with explicit camera frames; the circular
-    # x-convolution is one MXU matmul per chunk with the circulant of gx.
-    # On TPU (reached when the fused kernel is excluded, e.g. very large
-    # widths whose resident [W, W] circulant exceeds VMEM) the frames are
-    # computed W-major and sampled with the tiered-block hardware-PRNG
-    # sampler, so mostly-dark camera chunks skip the expensive sampler
-    # tiers -- the fused kernel's dark-frame economics at any width. With
-    # concrete widths the whole pipeline is BANDED (see _line_band /
-    # rescan.py:_illum_band): the conv contracts over a D_in sample-column
-    # window, and only the D_out columns the slit can read are produced and
-    # sampled -- all tables chunk-invariant.
-    hybrid = on_tpu and use_pallas is not False
-    if not hybrid:
-        band = None
-    if hybrid:
-        from rescan_line_sted_tpu.kernels.poisson_pallas import (
-            poisson_rows_tiered,
-        )
-
-        gx_t = gx_mat.T
-        sample_t = sample_y.T                                    # [W, H]
-        if band is not None:
-            d_in, d_out = band
-            s_in = (d_in - chunk) // 2
-            s_out = (d_out - chunk) // 2
-            ci = jnp.arange(chunk)[:, None]
-            # chunk-invariant tables (chunk positions are contiguous):
-            # illumination window, windowed detection circulant block,
-            # and the slit weights inside the output window
-            di = jnp.arange(d_in)[None, :]
-            ill_w = eff[(w // 2 + di - s_in - ci) % w]           # [C, Di]
-            # window the gx profile directly (fftconv.circulant_window):
-            # no [W, W] circulant intermediate on the banded path, XLA
-            # dead-code-eliminates the gx_mat build above
-            g0w = fftconv.circulant_window(gx, d_out, d_in, s_out, s_in)
-            scaled_win = (params.brightness
-                          * g0w[None] * ill_w[:, None, :])       # [C, Do, Di]
-            do = jnp.arange(d_out)[None, :]
-            slit_w = slit[(w // 2 + do - s_out - ci) % w]        # [C, Do]
+    if windowed is None:
+        windowed = band is not None
+    elif windowed and band is None:
+        raise ValueError(
+            "windowed route needs static line windows (concrete sigma_exc "
+            "and slit halfwidth, Gaussian excitation, windows narrower than "
+            "the frame)")
     positions = jnp.arange(w).reshape(n_chunks, chunk)
     xs = (positions, jax.random.split(key, n_chunks))
-
-    def body(img, chunk_in):
-        pos, k = chunk_in
-        if hybrid and band is not None:
-            a0 = pos[0] - s_in
-            sample_win = jnp.take(sample_t, (a0 + jnp.arange(d_in)) % w,
-                                  axis=0)                        # [Di, H]
-            cam_win = jnp.einsum("cxd,dh->cxh", scaled_win, sample_win,
-                                 preferred_element_type=jnp.float32,
-                                 precision=_PRECISION)           # [C, Do, H]
-            frames = poisson_rows_tiered(k, cam_win)
-            cols = jnp.einsum("cxh,cx->hc", frames, slit_w)      # [H, C]
-            return img.at[:, pos].set(cols), None
-        ill = shifted_profiles(eff, pos)                         # [C, W]
-        slits = shifted_profiles(slit, pos)                      # [C, W]
-        if hybrid:
-            emitted_t = ill[:, :, None] * sample_t[None]         # [C, W, H]
-            cam_t = poisson_rows_tiered(k, params.brightness * jnp.einsum(
-                "xa,cah->cxh", gx_t, emitted_t,
-                preferred_element_type=jnp.float32,
-                precision=_PRECISION))                           # [C, W, H]
-            cols = jnp.einsum("cwh,cw->hc", cam_t, slits)        # [H, C]
-            return img.at[:, pos].set(cols), None
-        emitted_y = ill[:, None, :] * sample_y[None]             # [C, H, W]
-        cam = maybe_poisson(
-            k, params.brightness
-            * jnp.einsum("cha,ax->chx", emitted_y, gx_mat,
-                         preferred_element_type=jnp.float32,
-                         precision=_PRECISION))
-        cols = jnp.einsum("chw,cw->hc", cam, slits)              # [H, C]
-        return img.at[:, pos].set(cols), None
-
     init = jnp.zeros(shape, jnp.float32)
+
+    if windowed:
+        d_in, d_out = band
+        s_in = (d_in - chunk) // 2
+        s_out = (d_out - chunk) // 2
+        ci = jnp.arange(chunk)[:, None]
+        # chunk-invariant tables (chunk positions are contiguous):
+        # illumination window, windowed detection circulant block (straight
+        # from the profile, no [W, W] intermediate), and the slit weights
+        # inside the output window
+        di = jnp.arange(d_in)[None, :]
+        ill_w = eff[(w // 2 + di - s_in - ci) % w]               # [C, Di]
+        g0w = fftconv.circulant_window(gx, d_out, d_in, s_out, s_in)
+        scaled_win = (params.brightness
+                      * g0w[None] * ill_w[:, None, :])           # [C, Do, Di]
+        do = jnp.arange(d_out)[None, :]
+        slit_w = slit[(w // 2 + do - s_out - ci) % w]            # [C, Do]
+        sample_t = sample_y.T                                    # [W, H]
+
+        def body(img, chunk_in):
+            pos, k = chunk_in
+            with jax.named_scope("conv"):
+                a0 = pos[0] - s_in
+                sample_win = jnp.take(sample_t,
+                                      (a0 + jnp.arange(d_in)) % w,
+                                      axis=0)                    # [Di, H]
+                cam_win = jnp.einsum("cxd,dh->cxh", scaled_win, sample_win,
+                                     preferred_element_type=jnp.float32,
+                                     precision=_PRECISION)       # [C, Do, H]
+            with jax.named_scope("sample"):
+                frames = maybe_poisson(k, cam_win)
+            with jax.named_scope("place"):
+                cols = jnp.einsum("cxh,cx->hc", frames, slit_w)  # [H, C]
+                return img.at[:, pos].set(cols), None
+    else:
+        gx_mat = fftconv.circulant_matrix(gx)
+
+        def body(img, chunk_in):
+            pos, k = chunk_in
+            with jax.named_scope("conv"):
+                ill = shifted_profiles(eff, pos)                 # [C, W]
+                emitted_y = ill[:, None, :] * sample_y[None]     # [C, H, W]
+                cam = params.brightness * jnp.einsum(
+                    "cha,ax->chx", emitted_y, gx_mat,
+                    preferred_element_type=jnp.float32,
+                    precision=_PRECISION)
+            with jax.named_scope("sample"):
+                cam = maybe_poisson(k, cam)
+            with jax.named_scope("place"):
+                slits = shifted_profiles(slit, pos)              # [C, W]
+                cols = jnp.einsum("chw,cw->hc", cam, slits)      # [H, C]
+                return img.at[:, pos].set(cols), None
+
     img, _ = jax.lax.scan(body, init, xs)
     return img
 
 
 def _line_band(params, w: int, chunk: int) -> tuple[int, int] | None:
-    """Static band windows ``(d_in, d_out)`` for the line per-step fallback.
+    """Static band windows ``(d_in, d_out)`` for the line per-step pipeline.
 
     Same construction as ``rescan.py:_illum_band`` (illumination bounded by
     its Gaussian envelope -> a D_in sample-contraction window), except the
     OUTPUT window only needs the slit support: descanned detection reads
     nothing else, so camera columns outside ``d_out = C + 2(slit_hw + 2)``
-    are neither produced nor sampled (their noise cannot reach the image --
-    the fused megakernel's slit-window argument). Exact: the slit profile
+    are neither produced nor sampled (their noise cannot reach the
+    image). Exact: the slit profile
     has hard support. None when any needed parameter is traced, a custom
     illumination model with a non-default EXCITATION is installed (custom
     depletion keeps the band; models.py ``gaussian_excitation``), or the

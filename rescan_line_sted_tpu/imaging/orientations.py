@@ -5,7 +5,7 @@ scan axis x, diffraction-limited along the line axis y), so the reference
 acquires several scan orientations and fuses them with multi-view
 Richardson-Lucy into an isotropic-resolution image.
 
-TPU-first: orientations are a vmapped batch -- rotate-acquire-derotate for
+Orientations are a vmapped batch -- rotate-acquire-derotate for
 all V angles compiles to one batched program (batched FFTs / batched scan),
 and the per-view system kernels for RL fusion come from rotating the
 closed-form descanned kernel.

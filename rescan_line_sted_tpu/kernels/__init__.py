@@ -6,11 +6,5 @@ from rescan_line_sted_tpu.kernels.fftconv import (  # noqa: F401
     fft_correlate,
 )
 from rescan_line_sted_tpu.kernels.rescan_accumulate import (  # noqa: F401
-    rescan_accumulate,
     rescan_accumulate_reference,
-)
-from rescan_line_sted_tpu.kernels.rescan_fused import rescan_fused  # noqa: F401
-from rescan_line_sted_tpu.kernels.poisson_pallas import (  # noqa: F401
-    poisson_pallas,
-    poisson_rows_tiered,
 )

@@ -105,17 +105,14 @@ def convolve_profiles(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 def circulant_matrix(profile: jnp.ndarray) -> jnp.ndarray:
     """Centered 1D kernel [W] -> circulant matrix M[a, x] = k(x - a), [W, W].
 
-    ``img @ M`` is circular convolution along the last axis as ONE matmul --
-    on TPU the MXU crushes a W x W matmul at these sizes, so scan engines use
-    this instead of per-step FFTs when they need explicit camera frames.
+    ``img @ M`` is circular convolution along the last axis as ONE matmul;
+    the full-frame scan pipelines use it instead of per-step FFTs when they
+    need explicit camera frames.
 
     Built WITHOUT a gather: a W*(W+1) tiling reshaped to [W, W+1] shifts
     each row by one (``i*(W+1) === i mod W``), so slicing the first W
-    columns and reversing rows yields exactly ``p[(x - a + W//2) % W]``.
-    The naive modular-index gather measures 8.6 ns/element on TPU v5e and
-    is NOT loop-hoisted by XLA -- 36 ms per 2048^2 build, 5x the cost of
-    the matmul it feeds; this form builds the same table in 5.7 ms at
-    2048^2 and is bit-identical (docs/PERFORMANCE.md, gather-free tables).
+    columns and reversing rows yields exactly ``p[(x - a + W//2) % W]`` --
+    bit-identical to the modular-index gather, as a tile and a reshape.
     """
     w = profile.shape[-1]
     q = jnp.roll(profile, -(1 + w // 2))

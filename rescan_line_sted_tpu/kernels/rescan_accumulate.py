@@ -2,40 +2,20 @@
 
 The rescanned line-STED engine accumulates each (re-binned) camera frame into
 the output canvas at a per-frame column offset ``round((R-1) * x0)`` with
-circular wrap (SURVEY.md section 4.3). BASELINE.json singles this op out as
-the stack's one custom **Pallas TPU kernel** ("rescan pixel-reassignment
-accumulation as a scatter-add Pallas kernel"); the ``.at[].add`` XLA scatter
-path is kept as a flag-selectable fallback and as the correctness oracle.
-
-Kernel design (TPU-first):
-
-* The canvas lives in VMEM for the whole grid (one block, constant index
-  map); frames stream through VMEM one per grid step -- the accumulation
-  never round-trips to HBM between steps.
-* The dynamic frame offset indexes the **sublane** (second-to-last) dim, so
-  arrays are laid out transposed ``[columns, height]``; unaligned sublane
-  offsets are cheap on TPU while unaligned lane offsets are not
-  (pallas guide: tiling constraints).
-* Circular wrap is handled by padding the canvas by one frame width and
-  folding the tail back afterwards -- no per-step conditionals.
-* The kernel computes the accumulation *delta* from zeros and the caller adds
-  it to the existing canvas, which sidesteps input/output aliasing.
+circular wrap (SURVEY.md section 4.3). The full-frame scan pipeline places
+rounded offsets with this XLA scatter-add; duplicate canvas columns
+accumulate.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def rescan_accumulate_reference(
     canvas: jnp.ndarray, frames: jnp.ndarray, offsets: jnp.ndarray
 ) -> jnp.ndarray:
-    """XLA scatter-add fallback path.
+    """Scatter-add ``frames`` into ``canvas`` at per-frame column offsets.
 
     canvas: [H, Wc] f32; frames: [N, H, w] f32; offsets: [N] int32 column
     offsets (any integers; wrapped mod Wc). Returns the updated canvas.
@@ -45,90 +25,3 @@ def rescan_accumulate_reference(
     cols = (offsets[:, None] + jnp.arange(w)[None, :]) % wc  # [N, w]
     # Scatter with duplicate indices accumulates.
     return canvas.at[:, cols].add(jnp.moveaxis(frames, 0, 1))
-
-
-def _accumulate_kernel(offsets_ref, frame_ref, out_ref, *, frame_w: int):
-    """Add one zero-padded frame [w_pad, H] at a dynamic sublane offset.
-
-    Mosaic requires dynamic sublane indices to be provably 8-aligned, so the
-    offset is split as ``off = 8*(off // 8) + r`` and the residual ``r`` is
-    applied by rotating the frame within its 8-row zero padding (content
-    moves from rows [0, w) to rows [r, r + w), zeros wrap to the top), then
-    the rotated frame is added at the aligned base.
-    """
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _init():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    off = offsets_ref[i]
-    base = pl.multiple_of((off // 8) * 8, 8)
-    r = off % 8
-    frame = frame_ref[0]
-    rotated = jax.lax.switch(
-        r, [lambda f, k=k: pltpu.roll(f, k, 0) for k in range(8)], frame)
-    out_ref[pl.ds(base, frame_w), :] += rotated
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-@functools.partial(jax.jit, static_argnames=("wc", "interpret"))
-def _pallas_delta(
-    frames_t: jnp.ndarray, offsets: jnp.ndarray, wc: int, interpret: bool
-) -> jnp.ndarray:
-    """Accumulate transposed frames [N, w, H] into a padded [Wc+w_pad, H] delta."""
-    n, w, h = frames_t.shape
-    w_pad = _round_up(w, 8) + 8  # room for the 8-alignment residual shift
-    frames_t = jnp.pad(frames_t, ((0, 0), (0, w_pad - w), (0, 0)))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n,),
-        in_specs=[
-            pl.BlockSpec((1, w_pad, h), lambda i, offs: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((wc + w_pad, h), lambda i, offs: (0, 0),
-                               memory_space=pltpu.VMEM),
-    )
-    return pl.pallas_call(
-        functools.partial(_accumulate_kernel, frame_w=w_pad),
-        out_shape=jax.ShapeDtypeStruct((wc + w_pad, h), frames_t.dtype),
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(offsets, frames_t)
-
-
-def rescan_accumulate(
-    canvas: jnp.ndarray,
-    frames: jnp.ndarray,
-    offsets: jnp.ndarray,
-    *,
-    use_pallas: bool | None = None,
-) -> jnp.ndarray:
-    """Scatter-add ``frames`` into ``canvas`` at per-frame column offsets.
-
-    Same contract as :func:`rescan_accumulate_reference`. ``use_pallas=None``
-    auto-selects: compiled Pallas on TPU, interpreted Pallas elsewhere only
-    when explicitly requested (the XLA fallback is faster than interpretation
-    on CPU).
-    """
-    interpret = jax.default_backend() != "tpu"
-    if use_pallas is None:
-        use_pallas = not interpret
-    if not use_pallas:
-        return rescan_accumulate_reference(canvas, frames, offsets)
-    wc = canvas.shape[-1]
-    w = frames.shape[-1]
-    w_pad = _round_up(w, 8) + 8
-    if w_pad > wc:
-        # Frame (plus alignment padding) wider than the canvas: the wrap fold
-        # below would overlap itself; only the XLA scatter handles this.
-        return rescan_accumulate_reference(canvas, frames, offsets)
-    offsets = jnp.asarray(offsets, jnp.int32) % wc
-    frames_t = jnp.transpose(frames, (0, 2, 1))  # [N, w, H]
-    padded = _pallas_delta(frames_t, offsets, wc, interpret)
-    delta = padded[:wc].at[:w_pad].add(padded[wc:])
-    return canvas + delta.T

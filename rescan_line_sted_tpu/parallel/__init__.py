@@ -10,6 +10,3 @@ from rescan_line_sted_tpu.parallel.multihost import (  # noqa: F401
     is_initialized,
     local_device_slice,
 )
-from rescan_line_sted_tpu.parallel.sharded_rescan import (  # noqa: F401
-    rescanned_line_sted_sharded,
-)

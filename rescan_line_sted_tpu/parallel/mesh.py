@@ -2,8 +2,8 @@
 communication backend").
 
 The reference is a single-process numpy script suite with no parallelism of
-any kind; the TPU-native equivalent of a communication backend is
-**XLA/GSPMD collectives over ICI/DCN**, reached by sharding inputs over a
+any kind; here the communication backend is **XLA/GSPMD collectives**
+(NCCL between GPUs on one host), reached by sharding inputs over a
 ``jax.sharding.Mesh`` and letting jit propagate. These helpers implement
 that recipe and degrade gracefully to the single-chip mesh available here:
 

@@ -1,9 +1,9 @@
 """Multi-host (multi-process) initialization for pod-scale meshes.
 
 SURVEY.md section 2.4: the reference (single-process numpy figure scripts,
-see SURVEY.md section 1) has no distributed story; the TPU-native
-equivalent of a communication backend is GSPMD over a global mesh. On a
-TPU pod each host runs one process and sees only its local chips until
+see SURVEY.md section 1) has no distributed story; here the
+communication backend is GSPMD over a global mesh. On a multi-host GPU
+cluster each host runs one process and sees only its local cards until
 ``jax.distributed.initialize`` stitches the processes into one runtime --
 after that ``jax.devices()`` is global and the ``parallel.mesh`` helpers
 (and everything jitted over their meshes) work unchanged, with XLA routing
@@ -16,7 +16,7 @@ Usage (one call per process, before the first backend use)::
 
     from rescan_line_sted_tpu.parallel import initialize_multihost, make_mesh
 
-    initialize_multihost()                       # env-driven (TPU pods)
+    initialize_multihost()                       # env-driven (SLURM/OMPI)
     # or explicitly:
     initialize_multihost("10.0.0.1:8476", num_processes=4, process_id=rank)
 
@@ -43,7 +43,7 @@ def initialize_multihost(coordinator_address: str | None = None,
     * With arguments: explicit cluster wiring (coordinator host:port, world
       size, rank) -- any launcher (mpirun, SLURM, k8s) can drive it.
     * Without arguments: ``jax.distributed.initialize`` auto-detects the
-      cluster from the environment (TPU pod metadata, SLURM/OMPI vars).
+      cluster from the environment (SLURM/OMPI vars).
       When auto-detection finds NO cluster at all it raises the specific
       "coordinator_address should be defined" ValueError; that one case is
       treated as single-process and the call is a NO-OP, so single-chip

@@ -22,7 +22,6 @@ which is the paper's speed/dose argument.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
 
 from rescan_line_sted_tpu.config import (
     LineSTEDGeometry,
@@ -34,6 +33,7 @@ from rescan_line_sted_tpu.config import (
 )
 from rescan_line_sted_tpu.physics import models
 from rescan_line_sted_tpu.physics import psf as psfs
+from rescan_line_sted_tpu.utils import struct
 
 
 @struct.dataclass

@@ -3,7 +3,9 @@
 The reference samples ``np.random.poisson(brightness * camera)`` per scan
 step; here detected counts are sampled with ``jax.random.poisson`` under jit,
 with PRNG keys threaded explicitly for determinism (fixed key => bit-identical
-images across runs and across jit/eager).
+images across runs and across jit/eager). This is the one sampler of the
+package: every engine's per-step and collapsed draws go through
+``maybe_poisson``.
 
 Statistical note (exploited by the analytic engines, see
 ``imaging/analytic.py``): sums of independent Poisson variables are Poisson
@@ -19,31 +21,19 @@ import jax
 import jax.numpy as jnp
 
 
-def poisson_counts(key: jax.Array, mean: jnp.ndarray,
-                   impl: str = "auto") -> jnp.ndarray:
+def poisson_counts(key: jax.Array, mean: jnp.ndarray) -> jnp.ndarray:
     """Sample detected photon counts; returns float32 counts.
 
     ``mean`` is the expected detected intensity (already brightness-scaled).
-
-    ``impl``:
-      * ``"auto"``      -- the Pallas hardware-PRNG sampler on TPU (~3.6x
-        faster than jax.random.poisson; chi-square-validated in
-        tests/test_poisson_kernel.py), threefry elsewhere;
-      * ``"threefry"``  -- jax.random.poisson everywhere (bit-identical
-        across platforms);
-      * ``"pallas"``    -- force the Pallas kernel (TPU only).
+    Negative means -- the tiny excursions band-limited placement can carry
+    -- are clamped to zero.
     """
-    if impl == "threefry":
-        return jax.random.poisson(key, jnp.maximum(mean, 0.0)).astype(
-            jnp.float32)
-    from rescan_line_sted_tpu.kernels.poisson_pallas import poisson_pallas
-
-    return poisson_pallas(key, jnp.maximum(mean, 0.0),
-                          interpret=None if impl == "auto" else False)
+    return jax.random.poisson(key, jnp.maximum(mean, 0.0)).astype(
+        jnp.float32)
 
 
-def maybe_poisson(key, mean: jnp.ndarray, impl: str = "auto") -> jnp.ndarray:
+def maybe_poisson(key, mean: jnp.ndarray) -> jnp.ndarray:
     """Noise-free passthrough when ``key is None`` (a static choice under jit)."""
     if key is None:
         return mean
-    return poisson_counts(key, mean, impl)
+    return poisson_counts(key, mean)

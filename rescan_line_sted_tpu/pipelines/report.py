@@ -2,7 +2,7 @@
 
 The reference's publication is a web page with figure panels the reader
 drives with sliders (depletion power, scan position, view count). This
-module rebuilds that artifact TPU-side: every frame is simulated on device
+module rebuilds that artifact: every frame is simulated on the device
 (one jitted program per figure), rendered to PNG on the host, base64-embedded
 in ONE ``index.html`` with dependency-free vanilla-JS sliders -- the file
 can be opened offline or dropped on any static host.
@@ -241,7 +241,7 @@ def html_report(out_dir: str, size: int = 192, num_powers: int = 6,
 </head><body>
 <h1>Line-scanning vs point-scanning STED at matched photodose</h1>
 <p>Interactive simulation report generated by
-<code>rescan_line_sted_tpu</code> (TPU-native rebuild of the
+<code>rescan_line_sted_tpu</code> (JAX rebuild of the
 rescan_line_sted simulation). Grid {size}&times;{size}, dose budget
 {dose_budget:g} per pixel, Poisson shot noise; all images acquired at
 dose-matched exposure.</p>

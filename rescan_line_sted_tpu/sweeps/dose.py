@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from rescan_line_sted_tpu.algorithms.metrics import fwhm_2d
 from rescan_line_sted_tpu.config import (
@@ -34,6 +33,7 @@ from rescan_line_sted_tpu.imaging import analytic
 from rescan_line_sted_tpu.imaging.line_sted import line_sted_image
 from rescan_line_sted_tpu.imaging.point_sted import point_sted_image
 from rescan_line_sted_tpu.physics.dose import line_sted_dose, point_sted_dose
+from rescan_line_sted_tpu.utils import struct
 
 
 @struct.dataclass

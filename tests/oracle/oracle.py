@@ -228,13 +228,16 @@ def rescanned_point_sted_image(sample, *, sigma_exc, sigma_det, sigma_dep,
 # -------------------------------------------------------- deconvolution ----
 
 def richardson_lucy(data_views, psf_views, num_iter: int,
-                    eps: float = 1e-9) -> np.ndarray:
+                    eps: float = 1e-9, floor: float | None = None
+                    ) -> np.ndarray:
     """Multi-view Richardson-Lucy fusion (SURVEY.md section 1.1):
 
     ``est <- est * mean_v[ (data_v / (est (*) psf_v)) (*) flip(psf_v) ]``.
 
     ``psf_views`` are centered kernels; flip is point reflection through the
-    grid center (circular).
+    grid center (circular). The ratio divides by ``max(fwd, eps)``; with
+    ``floor`` it is instead 0 wherever ``fwd <= floor`` (a forward model
+    that is ~0 or negative there carries no information).
     """
     data_views = [np.asarray(d, np.float64) for d in data_views]
     psf_views = [np.asarray(p, np.float64) for p in psf_views]
@@ -243,7 +246,10 @@ def richardson_lucy(data_views, psf_views, num_iter: int,
         ratio_sum = np.zeros_like(est)
         for d, p in zip(data_views, psf_views):
             fwd = fft_convolve(est, p)
-            ratio = d / np.maximum(fwd, eps)
+            if floor is None:
+                ratio = d / np.maximum(fwd, eps)
+            else:
+                ratio = np.where(fwd > floor, d / np.maximum(fwd, floor), 0.0)
             ratio_sum += fft_correlate(ratio, p)  # back-projection
         est = est * ratio_sum / len(data_views)
     return est

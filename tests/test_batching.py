@@ -52,11 +52,12 @@ def test_vmap_point(method):
     _check_batched(jax.jit(jax.vmap(f)), f)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_vmap_rescan(use_pallas):
-    geom = RescanGeometry(Grid(*SHAPE), rescan_factor=2.0, chunk=16)
+@pytest.mark.parametrize("rescan_factor", [2.0, 2.5])  # scatter / phases
+def test_vmap_rescan(rescan_factor):
+    geom = RescanGeometry(Grid(*SHAPE), rescan_factor=rescan_factor,
+                          chunk=16)
     f = lambda s: rescanned_line_sted_image(
-        s, LP, geom, method="scan", use_pallas=use_pallas).image
+        s, LP, geom, method="scan").image
     _check_batched(jax.jit(jax.vmap(f)), f)
 
 

@@ -7,12 +7,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-# these tests exercise multi-device sharding on the virtual 8-device CPU
-# platform (tests/conftest.py); under RLS_TEST_TPU=1 there is one real chip
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8,
-    reason="mesh tests need >= 8 (virtual) devices")
-
 from rescan_line_sted_tpu.config import (
     Grid,
     LineSTEDGeometry,
@@ -27,6 +21,14 @@ from rescan_line_sted_tpu.parallel import (
     shard_batch,
 )
 from rescan_line_sted_tpu.sweeps import dose_matched_sweep
+
+
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    """These tests shard over the virtual 8-device CPU platform
+    (tests/conftest.py); decided per test, at run time."""
+    if len(jax.devices()) < 8:
+        pytest.skip("mesh tests need >= 8 (virtual) devices")
 
 
 SHAPE = (48, 48)
@@ -192,26 +194,27 @@ def test_spatially_sharded_rescan_scan_path():
     assert 0.75 < chi2_ratio < 1.3, chi2_ratio
 
 
-def test_spatially_sharded_rescan_strips_path(monkeypatch):
-    """The rational-step STRIP placement (collapsed default on TPU at
-    rational R, incl. the snapped practical recommendation) compiles and
-    matches under GSPMD with the sample's rows sharded over 'space'.
-    TPU routing is forced by patching the backend probe; the strips path
-    is plain XLA (masked strip sums + dynamic slice-adds), so the CPU
-    mesh executes it faithfully."""
+def test_spatially_sharded_rescan_strips_path():
+    """The rational-step STRIP placement (the collapsed default wherever
+    band windows exist at rational R, incl. the snapped practical
+    recommendation) compiles and matches under GSPMD with the sample's
+    rows sharded over 'space', against the full-frame route."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from rescan_line_sted_tpu.config import RescanGeometry
     from rescan_line_sted_tpu.imaging import rescanned_line_sted_image
 
+    from rescan_line_sted_tpu.imaging import rescan
+
     mesh = make_mesh({"batch": 2, "space": 4})
-    geom = RescanGeometry(Grid(*SHAPE), rescan_factor=2.5, chunk=16)
-    params = replicate(mesh, LBASE.replace(depletion=jnp.float32(4.0)))
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    want = rescanned_line_sted_image(
-        SAMPLE, LBASE.replace(depletion=jnp.float32(4.0)), geom,
-        method="scan").image
-    sample = jax.device_put(SAMPLE, NamedSharding(mesh, P("space", None)))
+    w = 192  # band windows engage
+    big = samples.siemens_star((w, w), spokes=10)
+    geom = RescanGeometry(Grid(w, w), rescan_factor=2.5, chunk=16)
+    lp = LineSTEDParams.create(sigma_exc=1.2, sigma_det=1.2, depletion=4.0,
+                               brightness=1.0)
+    params = replicate(mesh, lp)
+    want = rescan._scan(big, lp, geom, None, windowed=False)
+    sample = jax.device_put(big, NamedSharding(mesh, P("space", None)))
     got = jax.jit(lambda s, p: rescanned_line_sted_image(
         s, p, geom, method="scan").image)(sample, params)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
@@ -426,363 +429,93 @@ def test_local_device_slice_ownership_semantics():
         local_device_slice(mesh_o, "batch")
 
 
-def test_sharded_banded_rescan_matches_replicated():
-    """The banded-fused Pallas engine under shard_map (VERDICT r3 weak #3):
-    sample rows sharded over 'space', halo-exchanged y-conv, per-device
-    pallas_call, concat epilogue -- parity against BOTH the replicated
-    banded engine and the exact non-banded scan engine, for the q=2 b=1
-    and q=2 b=2 placement cells."""
+SHARD_W = 192  # smallest grid where the 128-column band windows engage
+SHARD_SAMPLE = samples.siemens_star((SHARD_W, SHARD_W), spokes=10) * 3.0
+SHARD_PARAMS = LineSTEDParams.create(sigma_exc=1.2, sigma_det=1.2,
+                                     depletion=4.0, brightness=50.0)
+
+
+@pytest.mark.parametrize("noise", ["noise_free", "per_step"])
+@pytest.mark.parametrize("r_factor,b", [(2.0, 1), (1.5, 1), (2.5, 2),
+                                        (1.0 + np.pi / 16, 1),
+                                        (1.0 + np.pi / 8, 2)])
+def test_sharded_rescan_matches_replicated(r_factor, b, noise):
+    """Rows sharded over 'space' (GSPMD) vs the replicated call, on the
+    windowed route: integer, rational and irrational steps, with and
+    without binning. Noise-free: equal to f32 rounding; per-step: photon
+    total and residual power consistent with the replicated mean."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
+    from chip_smoke import check_noise
     from rescan_line_sted_tpu.config import RescanGeometry
     from rescan_line_sted_tpu.imaging import rescanned_line_sted_image
-    from rescan_line_sted_tpu.parallel.sharded_rescan import (
-        rescanned_line_sted_sharded,
-    )
 
     mesh = make_mesh({"batch": 2, "space": 4})
-    w = 192  # smallest grid where the 128-aligned band windows engage
-    sample = samples.siemens_star((w, w), spokes=10) * 3.0
-    params = LineSTEDParams.create(sigma_exc=1.2, sigma_det=1.2,
-                                   depletion=4.0, brightness=50.0)
-    for r_factor, b in [(1.5, 1), (2.0, 2)]:  # both: step (R-1)/b = 1/2
-        geom = RescanGeometry(Grid(w, w), rescan_factor=r_factor,
-                              binning=b, chunk=16)
-        # replicated banded engine (use_pallas=True pins it in interpret
-        # mode) AND the exact engine (banded declined): the sharded run
-        # must match both -- the only numerical difference is the
-        # halo-truncated detection window (< ~1e-9 tail)
-        banded = rescanned_line_sted_image(
-            sample, params, geom, method="scan", use_pallas=True).image
-        os.environ["RLS_BANDED_FUSED"] = "0"
-        try:
-            exact = rescanned_line_sted_image(
-                sample, params, geom, method="scan",
-                use_pallas=False).image
-        finally:
-            os.environ.pop("RLS_BANDED_FUSED", None)
-        sharded = jax.device_put(sample,
-                                 NamedSharding(mesh, P("space", None)))
-        got = jax.jit(lambda s, p, g=geom: rescanned_line_sted_sharded(
-            s, p, g, mesh).image)(sharded, replicate(mesh, params))
+    geom = RescanGeometry(Grid(SHARD_W, SHARD_W), rescan_factor=r_factor,
+                          binning=b, chunk=16)
+    want = np.asarray(rescanned_line_sted_image(
+        SHARD_SAMPLE, SHARD_PARAMS, geom, method="scan").image)
+    sharded = jax.device_put(SHARD_SAMPLE,
+                             NamedSharding(mesh, P("space", None)))
+    if noise == "noise_free":
+        got = jax.jit(lambda s, p: rescanned_line_sted_image(
+            s, p, geom, method="scan").image)(
+            sharded, replicate(mesh, SHARD_PARAMS))
         assert got.shape == geom.canvas_shape
-        scale = float(jnp.abs(banded).max())
-        np.testing.assert_allclose(np.asarray(got), np.asarray(banded),
-                                   rtol=2e-5, atol=2e-5 * scale)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(exact),
-                                   rtol=2e-4, atol=2e-4 * scale)
-
-    # per-step noise draws from the TPU hardware PRNG -- off-TPU the
-    # explicit API refuses rather than silently returning a zero-count
-    # canvas (values are asserted on hardware: scripts/run_tpu_tests.py
-    # sharded drive); collapsed noise composes outside the shard_map
-    geom = RescanGeometry(Grid(w, w), rescan_factor=1.5, chunk=16)
-    sharded = jax.device_put(sample, NamedSharding(mesh, P("space", None)))
-    with pytest.raises(ValueError, match="hardware PRNG"):
-        rescanned_line_sted_sharded(sharded, params, geom, mesh,
-                                    key=jax.random.key(3),
-                                    noise_mode="per_step")
-    collapsed = jax.jit(lambda s, p, k: rescanned_line_sted_sharded(
-        s, p, geom, mesh, key=k, noise_mode="collapsed").image)(
-        sharded, replicate(mesh, params), jax.random.key(3))
-    assert collapsed.shape == geom.canvas_shape
-    assert bool(jnp.all(jnp.isfinite(collapsed)))
-    assert float(jnp.sum(collapsed)) > 0.0
-
-
-def test_sharded_banded_rescan_validates():
-    """The explicit sharded API raises (never silently falls back) when
-    its preconditions fail."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from rescan_line_sted_tpu.config import RescanGeometry
-    from rescan_line_sted_tpu.parallel.sharded_rescan import (
-        rescanned_line_sted_sharded,
-    )
-
-    mesh = make_mesh({"space": 8})
-    params = LineSTEDParams.create(sigma_exc=1.2, sigma_det=1.2)
-    sample = samples.siemens_star((192, 192))
-    # irrational placement step: handled by NUFFT spreading since r5 --
-    # the precondition refusal remains only behind the opt-out
-    geom = RescanGeometry(Grid(192, 192), rescan_factor=1.0 + np.pi / 16,
-                          chunk=16)
-    os.environ["RLS_BANDED_NUFFT"] = "0"
-    try:
-        with pytest.raises(ValueError, match="irrational"):
-            rescanned_line_sted_sharded(sample, params, geom, mesh)
-    finally:
-        os.environ.pop("RLS_BANDED_NUFFT", None)
-    # H not divisible by the mesh axis
-    geom = RescanGeometry(Grid(192, 192), rescan_factor=1.5, chunk=16)
-    mesh3 = make_mesh({"space": 4, "batch": 2})
-    bad = samples.siemens_star((198, 192))
-    with pytest.raises(ValueError, match="not divisible"):
-        rescanned_line_sted_sharded(
-            bad, params, RescanGeometry(Grid(198, 192), rescan_factor=1.5,
-                                        chunk=16), mesh3)
-    # no static band windows at a grid the 128-aligned window cannot fit
-    small = samples.siemens_star((64, 64))
-    with pytest.raises(ValueError, match="band windows"):
-        rescanned_line_sted_sharded(
-            small, params, RescanGeometry(Grid(64, 64), rescan_factor=1.5,
-                                          chunk=16), mesh3)
-
-
-def test_scan_path_auto_routes_row_sharded_sample(monkeypatch):
-    """A concrete sample committed to a row-splitting NamedSharding
-    auto-routes ``rescanned_line_sted_image(method="scan")`` onto the
-    shard_map banded-fused engine -- and silently falls back to the GSPMD
-    scan path where that engine's preconditions fail (irrational R)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from rescan_line_sted_tpu.config import RescanGeometry
-    from rescan_line_sted_tpu.imaging import rescanned_line_sted_image
-    from rescan_line_sted_tpu.parallel import sharded_rescan as sr
-
-    mesh = make_mesh({"batch": 2, "space": 4})
-    w = 192  # smallest grid where the 128-aligned band windows engage
-    sample = samples.siemens_star((w, w), spokes=10) * 3.0
-    params = LineSTEDParams.create(sigma_exc=1.2, sigma_det=1.2,
-                                   depletion=4.0, brightness=50.0)
-    geom = RescanGeometry(Grid(w, w), rescan_factor=1.5, chunk=16)
-    ref = rescanned_line_sted_image(sample, params, geom, method="scan",
-                                    use_pallas=True).image
-
-    engaged = []
-    orig = sr.rescanned_line_sted_sharded
-
-    def spy(*a, **kw):
-        engaged.append(kw.get("axis"))
-        return orig(*a, **kw)
-
-    # _route_row_sharded re-imports from the module at call time, so
-    # patching the module attribute intercepts the routed call
-    monkeypatch.setattr(sr, "rescanned_line_sted_sharded", spy)
-    sharded = jax.device_put(sample, NamedSharding(mesh, P("space", None)))
-    got = rescanned_line_sted_image(sharded, params, geom, method="scan",
-                                    use_pallas=True).image
-    assert engaged == ["space"]
-    assert got.shape == geom.canvas_shape
-    scale = float(jnp.abs(ref).max())
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=2e-5, atol=2e-5 * scale)
-
-    # irrational placement step: since r5 the sharded engine handles it
-    # via NUFFT spreading (routes successfully); with NUFFT disabled the
-    # precondition refuses and the call must fall back to the GSPMD scan
-    # path, not raise
-    engaged.clear()
-    geom_ir = RescanGeometry(Grid(w, w), rescan_factor=1.0 + np.pi / 16,
-                             chunk=16)
-    got_ir = rescanned_line_sted_image(sharded, params, geom_ir,
-                                       method="scan", use_pallas=True)
-    assert engaged == ["space"]  # routed onto the sharded NUFFT engine
-    assert got_ir.image.shape == geom_ir.canvas_shape
-    engaged.clear()
-    os.environ["RLS_BANDED_NUFFT"] = "0"
-    try:
-        got_ir0 = rescanned_line_sted_image(sharded, params, geom_ir,
-                                            method="scan", use_pallas=True)
-    finally:
-        os.environ.pop("RLS_BANDED_NUFFT", None)
-    assert engaged == ["space"]  # attempted, refused inside, fell back
-    assert got_ir0.image.shape == geom_ir.canvas_shape
-
-    # a batch-replicated (column-whole, row-whole) committed sample must
-    # NOT route: only row-splitting shardings engage the shard_map engine
-    engaged.clear()
-    repl = jax.device_put(sample, NamedSharding(mesh, P(None, None)))
-    rescanned_line_sted_image(repl, params, geom, method="scan",
-                              use_pallas=True)
-    assert engaged == []
-
-
-def test_auto_route_per_step_noise_falls_back_off_tpu(monkeypatch):
-    """Off-TPU, per-step noise cannot draw from the hardware PRNG inside
-    the sharded kernel: the auto-route must attempt, get refused, and fall
-    back to the GSPMD scan path (which draws per-step noise in XLA) --
-    never raise and never return a silently noise-free canvas."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from rescan_line_sted_tpu.config import RescanGeometry
-    from rescan_line_sted_tpu.imaging import rescanned_line_sted_image
-    from rescan_line_sted_tpu.parallel import sharded_rescan as sr
-
-    mesh = make_mesh({"batch": 2, "space": 4})
-    w = 192
-    sample = samples.siemens_star((w, w), spokes=10) * 3.0
-    params = LineSTEDParams.create(sigma_exc=1.2, sigma_det=1.2,
-                                   depletion=4.0, brightness=200.0)
-    geom = RescanGeometry(Grid(w, w), rescan_factor=1.5, chunk=16)
-
-    engaged = []
-    orig = sr.rescanned_line_sted_sharded
-
-    def spy(*a, **kw):
-        engaged.append(True)
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(sr, "rescanned_line_sted_sharded", spy)
-    sharded = jax.device_put(sample, NamedSharding(mesh, P("space", None)))
-    noisefree = rescanned_line_sted_image(
-        sharded, params, geom, method="scan", use_pallas=True).image
-    got = rescanned_line_sted_image(
-        sharded, params, geom, method="scan", use_pallas=True,
-        key=jax.random.key(7), noise_mode="per_step").image
-    assert engaged  # the route was attempted before falling back
-    # integer counts with shot-noise scatter, not the noise-free canvas
-    assert not np.allclose(np.asarray(got), np.asarray(noisefree))
-    total, expect = float(jnp.sum(got)), float(jnp.sum(noisefree))
-    assert abs(total - expect) < 6.0 * np.sqrt(expect) + 1e-6
-
-
-def test_auto_route_surfaces_post_precondition_bugs(monkeypatch):
-    """A bug INSIDE the sharded engine body (past its precondition block)
-    must raise through the auto-route, not silently reroute onto the
-    GSPMD path (r4 VERDICT weak #6 / advisor finding 1): only
-    ShardedPreconditionError falls back."""
-    import importlib
-
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from rescan_line_sted_tpu.config import RescanGeometry
-    from rescan_line_sted_tpu.imaging import rescanned_line_sted_image
-
-    rbf = importlib.import_module(
-        "rescan_line_sted_tpu.kernels.rescan_banded_fused")
-
-    def boom(*a, **kw):
-        raise ValueError("engine body bug")
-
-    # the engine imports the kernel at call time, so the module attribute
-    # intercepts the post-precondition call
-    monkeypatch.setattr(rbf, "rescan_banded_fused", boom)
-    mesh = make_mesh({"batch": 2, "space": 4})
-    w = 192
-    sample = samples.siemens_star((w, w), spokes=10) * 3.0
-    params = LineSTEDParams.create(sigma_exc=1.2, sigma_det=1.2,
-                                   depletion=4.0, brightness=50.0)
-    geom = RescanGeometry(Grid(w, w), rescan_factor=1.5, chunk=16)
-    sharded = jax.device_put(sample, NamedSharding(mesh, P("space", None)))
-    with pytest.raises(ValueError, match="engine body bug"):
-        rescanned_line_sted_image(sharded, params, geom, method="scan",
-                                  use_pallas=True)
+        scale = float(np.abs(want).max())
+        np.testing.assert_allclose(np.asarray(got), want, rtol=2e-5,
+                                   atol=2e-5 * scale)
+        return
+    noisy = jax.jit(lambda s, p, k: rescanned_line_sted_image(
+        s, p, geom, key=k, method="scan", noise_mode="per_step").image)(
+        sharded, replicate(mesh, SHARD_PARAMS), jax.random.key(3))
+    assert noisy.shape == geom.canvas_shape
+    check_noise("sharded per-step", noisy, want)
 
 
 def test_row_sharded_call_validates_arguments_like_unsharded():
-    """Same arguments, same validation, sharded or not (r4 advisor
-    finding 2): an unknown reassignment raises ValueError instead of
-    silently computing a subpixel result through the routed engine."""
+    """Same arguments, same validation, sharded or not: an unknown
+    reassignment raises ValueError for both."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from rescan_line_sted_tpu.config import RescanGeometry
     from rescan_line_sted_tpu.imaging import rescanned_line_sted_image
 
     mesh = make_mesh({"batch": 2, "space": 4})
-    w = 192
-    sample = samples.siemens_star((w, w), spokes=10) * 3.0
-    params = LineSTEDParams.create(sigma_exc=1.2, sigma_det=1.2,
-                                   depletion=4.0, brightness=50.0)
-    geom = RescanGeometry(Grid(w, w), rescan_factor=1.5, chunk=16)
-    sharded = jax.device_put(sample, NamedSharding(mesh, P("space", None)))
-    for arr in (sample, sharded):
+    geom = RescanGeometry(Grid(SHARD_W, SHARD_W), rescan_factor=1.5,
+                          chunk=16)
+    sharded = jax.device_put(SHARD_SAMPLE,
+                             NamedSharding(mesh, P("space", None)))
+    for arr in (SHARD_SAMPLE, sharded):
         with pytest.raises(ValueError, match="unknown reassignment"):
-            rescanned_line_sted_image(arr, params, geom, method="scan",
-                                      use_pallas=True,
+            rescanned_line_sted_image(arr, SHARD_PARAMS, geom,
+                                      method="scan",
                                       reassignment="nearest")
 
 
-def test_row_sharded_mesh_rejects_non_2d():
-    """A rank-3 sample (lead axis sharded) must not attempt the 2D-only
-    shard_map engine (r4 advisor finding 3)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from rescan_line_sted_tpu.imaging.rescan import _row_sharded_mesh
-
-    mesh = make_mesh({"batch": 2, "space": 4})
-    arr3 = jax.device_put(jnp.ones((8, 16, 16), jnp.float32),
-                          NamedSharding(mesh, P("space")))
-    assert _row_sharded_mesh(arr3) is None
-    arr2 = jax.device_put(jnp.ones((8, 16), jnp.float32),
-                          NamedSharding(mesh, P("space", None)))
-    assert _row_sharded_mesh(arr2) is not None
-
-
-def test_auto_route_engages_inside_jit_on_explicit_mesh(monkeypatch):
-    """Inside ``jit`` the row split IS visible when it lives on an
-    EXPLICIT mesh axis (sharding-in-types), so the auto-route engages
-    there too -- closing the eager-only cliff for explicit-mode callers
-    (r4 VERDICT weak #6, second half). Parity vs the unsharded engine."""
-    from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
-
+def test_sharded_sweep_with_rescan_arm_matches_unsharded():
+    """The config-4 sweep with the rescan arm (windowed route at 192^2),
+    sweep points sharded over 'batch': every arm matches the unsharded
+    sweep, noise-free."""
     from rescan_line_sted_tpu.config import RescanGeometry
-    from rescan_line_sted_tpu.imaging import rescanned_line_sted_image
-    from rescan_line_sted_tpu.parallel import sharded_rescan as sr
 
-    mesh = jax.make_mesh((4,), ("space",),
-                         axis_types=(AxisType.Explicit,))
-    w = 192
-    sample = samples.siemens_star((w, w), spokes=10) * 3.0
-    params = LineSTEDParams.create(sigma_exc=1.2, sigma_det=1.2,
-                                   depletion=4.0, brightness=50.0)
-    geom = RescanGeometry(Grid(w, w), rescan_factor=1.5, chunk=16)
-    ref = rescanned_line_sted_image(sample, params, geom, method="scan",
-                                    use_pallas=True).image
+    grid = Grid(SHARD_W, SHARD_W)
+    pgeom, lgeom = PointSTEDGeometry(grid), LineSTEDGeometry(grid)
+    rgeom = RescanGeometry(grid, rescan_factor=2.0, chunk=16)
+    pbase = PointSTEDParams.create(sigma_exc=1.2, sigma_det=1.2,
+                                   sigma_dep=1.2, brightness=1.0)
+    powers = jnp.linspace(0.0, 8.0, 8)
 
-    engaged = []
-    orig = sr.rescanned_line_sted_sharded
+    def sweep(s, p):
+        return dose_matched_sweep(s, pbase, SHARD_PARAMS, pgeom, lgeom, p,
+                                  100.0, rescan_geom=rgeom)
 
-    def spy(*a, **kw):
-        engaged.append(kw.get("axis"))
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(sr, "rescanned_line_sted_sharded", spy)
-    sharded = jax.device_put(sample, NamedSharding(mesh, P("space", None)))
-    got = jax.jit(lambda s, p: rescanned_line_sted_image(
-        s, p, geom, method="scan", use_pallas=True).image)(sharded, params)
-    assert engaged == ["space"]  # routed AT TRACE TIME, not eagerly
-    assert got.shape == geom.canvas_shape
-    scale = float(jnp.abs(ref).max())
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=2e-5, atol=2e-5 * scale)
-
-
-def test_sharded_nufft_irrational_matches_replicated():
-    """r5: the sharded engine handles IRRATIONAL placement steps via the
-    kernel's NUFFT spreading mode (two parity canvases + per-device
-    window deconvolution) -- parity vs the replicated NUFFT engine AND
-    the exact rDFT engine on the virtual mesh; the auto-route engages
-    instead of falling back."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from rescan_line_sted_tpu.config import RescanGeometry
-    from rescan_line_sted_tpu.imaging import rescanned_line_sted_image
-    from rescan_line_sted_tpu.parallel.sharded_rescan import (
-        rescanned_line_sted_sharded,
-    )
-
-    mesh = make_mesh({"batch": 2, "space": 4})
-    w = 192
-    sample = samples.siemens_star((w, w), spokes=10) * 3.0
-    params = LineSTEDParams.create(sigma_exc=1.2, sigma_det=1.2,
-                                   depletion=4.0, brightness=50.0)
-    geom = RescanGeometry(Grid(w, w), rescan_factor=1.0 + np.pi / 16,
-                          chunk=16)
-    replicated = rescanned_line_sted_image(
-        sample, params, geom, method="scan", use_pallas=True).image
-    os.environ["RLS_BANDED_NUFFT"] = "0"
-    try:
-        exact = rescanned_line_sted_image(
-            sample, params, geom, method="scan", use_pallas=False).image
-    finally:
-        os.environ.pop("RLS_BANDED_NUFFT", None)
-    sharded = jax.device_put(sample, NamedSharding(mesh, P("space", None)))
-    got = jax.jit(lambda s, p, g=geom: rescanned_line_sted_sharded(
-        s, p, g, mesh).image)(sharded, replicate(mesh, params))
-    assert got.shape == geom.canvas_shape
-    scale = float(jnp.abs(exact).max())
-    np.testing.assert_allclose(np.asarray(got), np.asarray(replicated),
-                               rtol=2e-5, atol=2e-5 * scale)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(exact),
-                               rtol=2e-5, atol=2e-5 * scale)
+    want = jax.jit(sweep)(SHARD_SAMPLE, powers)
+    mesh = make_mesh({"batch": 8})
+    got = jax.jit(sweep)(replicate(mesh, SHARD_SAMPLE),
+                         shard_batch(mesh, powers))
+    for arm in ("point", "line", "rescan"):
+        w = np.asarray(getattr(want, arm).image)
+        np.testing.assert_allclose(np.asarray(getattr(got, arm).image), w,
+                                   rtol=2e-5, atol=2e-5 * np.abs(w).max())
+    assert got.rescan.image.sharding.is_fully_replicated is False

@@ -75,5 +75,3 @@ def test_matmul_precision_knob(monkeypatch):
     assert matmul_precision() == jax.lax.Precision.DEFAULT
     monkeypatch.setenv("RLS_MATMUL_PRECISION", "high")
     assert matmul_precision() == jax.lax.Precision.HIGH
-    # Mosaic has no in-kernel 3-pass dots: pallas callers get HIGHEST
-    assert matmul_precision(pallas=True) == jax.lax.Precision.HIGHEST

@@ -5,6 +5,7 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from rescan_line_sted_tpu.utils.observability import (
     Timer,
@@ -68,7 +69,22 @@ def test_trace_writes_profile(tmp_path):
     assert found  # perfetto/xplane artifacts exist
 
 
-def test_enable_compilation_cache_paths(monkeypatch, tmp_path):
+@pytest.fixture
+def restore_cache_config():
+    """Put the process-global compilation-cache settings back afterwards,
+    so later tests do not write their executables to a pytest tmp dir."""
+    import jax
+
+    names = ("jax_compilation_cache_dir",
+             "jax_persistent_cache_min_compile_time_secs")
+    saved = {n: getattr(jax.config, n) for n in names}
+    yield
+    for n, v in saved.items():
+        jax.config.update(n, v)
+
+
+def test_enable_compilation_cache_paths(monkeypatch, tmp_path,
+                                        restore_cache_config):
     import jax
 
     from rescan_line_sted_tpu.utils import enable_compilation_cache
